@@ -1,23 +1,22 @@
 """BASELINE configs[4] at spec SIZE on the available hardware: a
 64e9-bit (8 GB) bitmap sharded over an 8-device mesh, ordered gather,
-bit-exact stitched output. The spec'd v5p-16 pod is not reachable from
-this rig (one v5e chip): this runs the FULL distributed pipeline —
+bit-exact stitched output. This runs the FULL distributed pipeline —
 block-sharded encode, (D,) totals all_gather, ordered stream gather,
 span-sharded decode — at the spec'd data size on an 8-virtual-device
-CPU mesh. It validates the mechanism and the int32 position envelope
-at 64e9 bits (2e9 ints, just under the 2^31-1 chunk cap), NOT pod
-throughput; DESIGN.md carries the pod efficiency projection.
+CPU mesh. It validates the mechanism at 64e9 bits (2e9 ints), not the
+throughput of any device.
 
 Execution is streamed through block-aligned SEGMENTS (16 x 4e9 bits),
 each a full mesh encode/decode round: segment streams concatenate
 exactly because fill runs never cross 1024-chunk blocks and segment
 boundaries are block-aligned (same argument as api.compress_segments,
 pinned by tests/test_api.py); every inter-segment seam is additionally
-golden-verified word-exact in the gathered stream. The segmenting
-bounds host RAM — the pure-XLA CPU shard body materializes ~a dozen
+golden-verified word-exact in the gathered stream. Each segment stays
+inside the 2^30-chunk limit of one call (api.MAX_CHUNKS), and the
+segmenting bounds host RAM — the pure-XLA CPU shard body materializes ~a dozen
 live span-sized intermediates per device, which at the full 2e9-int
-span peaked past 117 GB RSS (OOM-killed). A real pod would not need
-it: each of 8 chips holds a 1 GB input shard, well inside 16 GB HBM.
+span peaked past 117 GB RSS (OOM-killed). A mesh of GPUs would not
+need it at this size: each of 8 devices would hold a 1 GB input shard.
 
     python -u -m benchmarks.config4_dryrun          # ~tens of minutes
 Writes benchmarks/config4_cpu_mesh.json.

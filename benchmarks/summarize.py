@@ -1,10 +1,10 @@
 """Summarize a sweep CSV (benchmarks.report schema) as a Markdown table.
 
 The reference emits raw CSV only (source.cpp:38-48); its README has no
-numbers. Here the README's sweep table is regenerated from the committed
-results file so docs and measurements cannot drift:
+numbers. This renders a sweep's rows as a table (or rewrites a Markdown
+file's marker block with it, `--inject`):
 
-  python -m benchmarks.summarize benchmarks/results_v5e.txt
+  python -m benchmarks.summarize results.txt
 
 Prints one Markdown table: a row per bitmap size, kernel-phase GB/s
 (device-timed, transfers excluded — column semantics per

@@ -1,6 +1,6 @@
 // Native host-side WAH codec core.
 //
-// TPU-native framework's C++ runtime component: the reference implements
+// The framework's C++ runtime component: the reference implements
 // its host layer in C++/CUDA (compress.cu:41-209, decompress.cu:18-141);
 // here the host-side counterpart is a fast scalar CPU codec used for
 // (a) host validation of device streams, (b) golden cross-checks in the

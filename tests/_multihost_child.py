@@ -7,7 +7,7 @@ Each process brings up jax.distributed (CPU backend, 2 local virtual
 devices), places its host-local rows of a shared global bitmap, runs the
 full sharded pipeline (encode -> global stitch -> sharded decode), and
 verifies bit-exactness against the golden model — the actual contract
-multihost.py exists for, exercised without a TPU pod.
+multihost.py exists for, exercised without a cluster.
 """
 import sys
 
@@ -17,9 +17,8 @@ def main() -> None:
 
     import jax
 
-    # Defeat the environment's default platform before any backend use
-    # (jax.distributed.initialize must run before backend init — see
-    # multihost.initialize's guard).
+    # CPU platform before any backend use (jax.distributed.initialize
+    # must run before backend init — see multihost.initialize's guard).
     jax.config.update("jax_num_cpu_devices", 2)
     jax.config.update("jax_platforms", "cpu")
 

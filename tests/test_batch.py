@@ -50,11 +50,11 @@ def test_batch_mixed_extremes():
     np.testing.assert_array_equal(out, data)
 
 
-def test_batch_pallas_path_matches_golden():
-    """The TPU batch route (lax.map over fused Pallas kernels), in
-    interpreter mode: exact per-column streams + roundtrip."""
+def test_batch_streams_and_roundtrip():
+    """One batched encode over all columns' blocks: exact per-column
+    streams, and the batched decode returns the columns."""
     data = _columns(2 * BLOCK_INTS + 100, [1 / 64, 0.5, 0.0], seed0=7)
-    codec = WahCodec(kernel="pallas")
+    codec = WahCodec()
     words, totals = codec.compress_batch(data)
     for c in range(data.shape[0]):
         ref = golden.encode(data[c])
@@ -64,17 +64,11 @@ def test_batch_pallas_path_matches_golden():
     np.testing.assert_array_equal(out, data)
 
 
-def test_batch_flattened_kernel_direct():
-    """encode_padded_batch (one flattened kernel pipeline): per-column
-    streams bit-exact vs golden across densities, including a column
-    whose stream fills its capacity exactly (incompressible data ->
-    every boundary/carry path in the batched stitch)."""
-    import jax
-
-    from wah_tpu.golden import chunk_count
-    from wah_tpu.ops.pallas import encode_kernel
-
-    nb = 8  # CPU TILE_BLOCKS; pow2
+def test_batch_capacity_filling_columns():
+    """Per-column streams bit-exact vs golden across densities, including
+    a column whose stream fills its capacity exactly (incompressible
+    data) beside all-zero and all-one columns."""
+    nb = 8
     n = nb * BLOCK_INTS  # block-aligned: full-capacity column possible
     rng = np.random.default_rng(42)
     cols = np.stack(
@@ -88,10 +82,7 @@ def test_batch_flattened_kernel_direct():
             np.full(n, 0xFFFFFFFF, np.uint32),
         ]
     )
-    nv = np.int32(chunk_count(n))
-    words, totals = jax.jit(encode_kernel.encode_padded_batch)(cols, nv)
-    words = np.asarray(words).reshape(cols.shape[0], -1)  # flat return
-    totals = np.asarray(totals)
+    words, totals = WahCodec().compress_batch(cols)
     assert totals[1] == nb * 1024  # capacity-filling column
     for c in range(cols.shape[0]):
         ref = golden.encode(cols[c])
@@ -99,51 +90,28 @@ def test_batch_flattened_kernel_direct():
         np.testing.assert_array_equal(words[c, : totals[c]], ref)
 
 
-def test_batch_flattened_kernel_groups_and_tail():
-    """group_rows smaller than the batch forces multiple lax.map groups
-    plus a padded partial group; a non-block-multiple column length
-    exercises the per-column validity mask's tail."""
-    import jax
-    from functools import partial
-
-    from wah_tpu.golden import chunk_count
-    from wah_tpu.ops.pallas import encode_kernel
-
-    nb = 8
-    n = (nb - 2) * BLOCK_INTS + 123  # tail: last valid block partial
+def test_batch_agrees_with_single_columns_with_tail():
+    """A non-block-multiple column length (partial last block) and a
+    non-pow2 block count: the batched encode gives each column the
+    stream that compress() gives it alone."""
+    n = 5 * BLOCK_INTS + 123
     cols = np.stack(
         [random_bitmap(n, d, seed=20 + i) for i, d in enumerate(
             [1 / 512, 0.3, 0.0, 1.0, 1 / 16])]
     )
-    padded = np.zeros((cols.shape[0], nb * BLOCK_INTS), np.uint32)
-    padded[:, :n] = cols
-    nv = np.int32(chunk_count(n))
-    # 2 columns per group -> 3 groups, last padded from 5 to 6 columns
-    fn = jax.jit(
-        partial(encode_kernel.encode_padded_batch, group_rows=2 * nb)
-    )
-    words, totals = fn(padded, nv)
-    words = np.asarray(words).reshape(cols.shape[0], -1)
-    totals = np.asarray(totals)
-    assert totals.shape[0] == cols.shape[0]  # padding stripped
+    codec = WahCodec()
+    bw, bt = codec.compress_batch(cols)
     for c in range(cols.shape[0]):
-        ref = golden.encode(cols[c])
-        assert totals[c] == len(ref), c
-        np.testing.assert_array_equal(words[c, : totals[c]], ref)
+        single, _ = codec.compress(cols[c])
+        np.testing.assert_array_equal(bw[c, : bt[c]], single)
+        np.testing.assert_array_equal(single, golden.encode(cols[c]))
 
 
-def test_batch_flattened_decode_direct():
-    """decode_batch (one flattened kernel): roundtrip vs golden for
-    mixed columns — all-zeros (max-length fills, covering row jumps),
-    incompressible (capacity-filling stream), dense, sparse, tail."""
-    import jax
-
-    from wah_tpu.constants import BLOCK_CHUNKS
-    from wah_tpu.golden import chunk_count
-    from wah_tpu.ops.pallas import decode_kernel
-
-    nbo = 8  # CPU decode TILE_BLOCKS; pow2
-    n = (nbo - 1) * BLOCK_INTS + 200  # tail: nv < capacity
+def test_batch_decode_mixed_columns():
+    """decompress_batch over mixed columns — all-zeros (max-length fills),
+    incompressible (capacity-filling stream), dense, sparse, all-ones,
+    clustered — with a partial last block."""
+    n = 7 * BLOCK_INTS + 200
     rng = np.random.default_rng(77)
     cols = np.stack(
         [
@@ -158,29 +126,26 @@ def test_batch_flattened_decode_direct():
         ]
     )
     streams = [golden.encode(c) for c in cols]
-    ms = np.array([len(s) for s in streams], np.int32)
-    Mcap = max(1024, -(-int(ms.max()) // 1024) * 1024)
-    w2 = np.zeros((len(streams), Mcap), np.uint32)
+    M = max(len(s) for s in streams)
+    w2 = np.zeros((len(streams), M), np.uint32)
     for i, s in enumerate(streams):
         w2[i, : len(s)] = s
-    cap = nbo * BLOCK_CHUNKS
-    flat = jax.jit(
-        lambda w, m: decode_kernel.decode_batch(w, m, cap)
-    )(w2, ms)
-    flat = np.asarray(flat).reshape(len(streams), -1)
-    nv = chunk_count(n)
-    out_ints = (31 * nv + 31) // 32
-    for c in range(cols.shape[0]):
-        np.testing.assert_array_equal(
-            flat[c, :out_ints][:n], cols[c], err_msg=str(c)
-        )
+    totals = np.array([len(s) for s in streams])
+    out = WahCodec().decompress_batch(w2, totals, out_ints=n)
+    np.testing.assert_array_equal(out, cols)
 
 
-def test_batch_decompress_pallas_route():
-    """api.decompress_batch takes the flattened Pallas kernel on the
-    pallas route and stays bit-exact."""
-    data = _columns(3 * BLOCK_INTS + 41, [1 / 64, 0.5, 0.0, 1 / 4096])
-    codec = WahCodec(kernel="pallas")
-    words, totals = codec.compress_batch(data)
-    out = codec.decompress_batch(words, totals, out_ints=data.shape[1])
-    np.testing.assert_array_equal(out, data)
+def test_batch_decompress_unequal_expansions():
+    """Columns of different expanded lengths share one batch decode: the
+    capacity follows the longest, shorter ones decode to their own
+    length and zeros after it."""
+    a = random_bitmap(3 * BLOCK_INTS, 1 / 8, seed=41)
+    b = random_bitmap(BLOCK_INTS + 10, 0.5, seed=42)
+    sa, sb = golden.encode(a), golden.encode(b)
+    w2 = np.zeros((2, max(len(sa), len(sb))), np.uint32)
+    w2[0, : len(sa)] = sa
+    w2[1, : len(sb)] = sb
+    out = WahCodec().decompress_batch(w2, np.array([len(sa), len(sb)]))
+    np.testing.assert_array_equal(out[0, : len(a)], a)
+    np.testing.assert_array_equal(out[1, : len(b)], b)
+    assert not out[1, len(golden.decode(sb)) :].any()

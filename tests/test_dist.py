@@ -1,8 +1,8 @@
-"""Multi-chip sharded codec tests on the 8-virtual-device CPU mesh.
+"""Multi-device sharded codec tests on the 8-virtual-device CPU mesh.
 
 The reference has no distributed backend (SURVEY.md §2.2); these tests pin
 the one invariant that makes distribution free: sharded encode/decode is
-bit-identical to the single-chip path (and hence to the golden model),
+bit-identical to the single-device path (and hence to the golden model),
 because fill runs never cross block boundaries (tests.cpp:227-239) and
 shard boundaries are block-aligned.
 """
@@ -138,20 +138,13 @@ def test_sharded_decompress_rejects_corrupt_stream(mesh):
         codec.decompress(np.array([0x80000000], dtype=np.uint32))
 
 
-def test_sharded_pallas_non_tile_multiple_shards(mesh):
-    """Per-shard block count NOT a TILE_BLOCKS multiple (nb_l = 12,
-    D = 8, interpreter TILE = 8): the Pallas kernels pad each shard to
-    16 rows, and the spurious-fill clamp (encode_kernel._clamped_nv)
-    must keep those padding rows from emitting zero-fill words on
-    non-final shards (their global chunk positions sit below the GLOBAL
-    n_valid_chunks). Forced onto the interpreted Pallas path under a
-    real 8-device shard_map — not the single-shard simulation in
-    test_pallas."""
+def test_sharded_uneven_shards(mesh):
+    """The encoder under a real 8-device shard_map, 12 blocks per shard: each shard's chunk_base must keep its padding
+    and its block validity global, and the one-fill tail on the last
+    shard must stay one word per block."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from wah_tpu.parallel.dist import decode_sharded as dsh
-
-    D, nb = 8, 96  # nb_l = 12; 12 % 8 != 0
+    nb = 96  # nb_l = 12
     n = nb * BLOCK_INTS
     rng = np.random.default_rng(42)
     data = np.where(
@@ -163,30 +156,13 @@ def test_sharded_pallas_non_tile_multiple_shards(mesh):
     ref = golden.encode(data)
 
     dev = jax.device_put(data, NamedSharding(mesh, P("blocks")))
-    words, totals = encode_sharded(
-        mesh, dev, np.int32(nv), use_pallas=True
-    )
+    words, totals = encode_sharded(mesh, dev, np.int32(nv))
     np.testing.assert_array_equal(gather_stream(words, totals), ref)
-
-    # decode back through the sharded Pallas decoder (chunks_l = 12*1024)
-    cap = nb * BLOCK_CHUNKS
-    M = 1 << (len(ref) - 1).bit_length()
-    padded = np.zeros(max(M, 1024), np.uint32)
-    padded[: len(ref)] = ref
-    ints, n_chunks = dsh(
-        mesh, jax.device_put(padded), np.int32(len(ref)), cap,
-        use_pallas=True,
-    )
-    assert int(np.asarray(n_chunks)[0]) == nv
-    out = gather_bitmap(ints, (31 * nv + 31) // 32)
-    np.testing.assert_array_equal(out[:n], data)
 
 
 def test_sharded_codec_sparse_hint_roundtrip(mesh):
-    """Near-empty data drives the v1 stitch hint through the sharded
-    encode's static plumb (stitch_variant reaches the Pallas branch on
-    TPU; the CPU branch ignores it — this pins the plumbing compiles
-    and the stream stays golden)."""
+    """Near-empty data: almost every block is one zero fill, so most
+    shards emit a handful of words; the stream stays golden."""
     from wah_tpu import golden
 
     data = np.zeros(8 * BLOCK_INTS, dtype=np.uint32)
@@ -196,42 +172,29 @@ def test_sharded_codec_sparse_hint_roundtrip(mesh):
     np.testing.assert_array_equal(stream, golden.encode(data))
 
 
-def test_sharded_pallas_adaptive_roundtrip(mesh):
-    """Adaptive kernel variants under a real 8-device shard_map
-    (interpreted Pallas): incompressible data takes the all-start fast
-    path per shard; a mixed block exercises the slow tier inside the
-    adaptive variant. Stream must stay golden and roundtrip."""
+def test_sharded_partial_last_shard(mesh):
+    """The sharded encode of a bitmap that ends inside the last shard, then the sharded decode back: stream golden, roundtrip
+    exact."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from wah_tpu.parallel.dist import decode_sharded as dsh
-
-    D, nb = 8, 16
-    n = nb * BLOCK_INTS
-    rng = np.random.default_rng(7)
-    data = rng.integers(1, (1 << 32) - 1, n, dtype=np.uint64).astype(
-        np.uint32
-    )
-    data[5 * BLOCK_INTS : 5 * BLOCK_INTS + 200] = 0  # one mixed block
+    n = 13 * BLOCK_INTS + 77
+    data = random_bitmap(n, density=1 / 16, seed=17)
+    data[3 * BLOCK_INTS : 4 * BLOCK_INTS] = 0
     nv = chunk_count(n)
+    nb = 16  # two blocks per shard, the last ones mostly padding
+    padded = np.zeros(nb * BLOCK_INTS, np.uint32)
+    padded[:n] = data
+    dev = jax.device_put(padded, NamedSharding(mesh, P("blocks")))
+    words, totals = encode_sharded(mesh, dev, np.int32(nv))
     ref = golden.encode(data)
-
-    dev = jax.device_put(data, NamedSharding(mesh, P("blocks")))
-    words, totals = encode_sharded(
-        mesh, dev, np.int32(nv), use_pallas=True, adaptive=True
-    )
     np.testing.assert_array_equal(gather_stream(words, totals), ref)
-
-    cap = nb * BLOCK_CHUNKS
     M = 1 << (len(ref) - 1).bit_length()
-    padded = np.zeros(max(M, 1024), np.uint32)
-    padded[: len(ref)] = ref
-    ints, n_chunks = dsh(
-        mesh, jax.device_put(padded), np.int32(len(ref)), cap,
-        use_pallas=True, adaptive=True,
+    wp = np.zeros(M, np.uint32)
+    wp[: len(ref)] = ref
+    ints, _ = decode_sharded(
+        mesh, jax.device_put(wp), np.int32(len(ref)), nb * BLOCK_CHUNKS
     )
-    assert int(np.asarray(n_chunks)[0]) == nv
-    out = gather_bitmap(ints, (31 * nv + 31) // 32)
-    np.testing.assert_array_equal(out[:n], data)
+    np.testing.assert_array_equal(gather_bitmap(ints, n), data)
 
 
 def test_stitch_global_bounded_payload(mesh):

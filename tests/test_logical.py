@@ -67,7 +67,7 @@ def test_logical_composition(codec):
 
 def test_logical_many_matches_pairwise():
     """logical_many (one batch decode + reduce + encode) equals the
-    pairwise fold, on both kernel routes."""
+    pairwise fold, on both encode paths."""
     from conftest import random_bitmap
     from wah_tpu import WahCodec, golden
 
@@ -79,22 +79,21 @@ def test_logical_many_matches_pairwise():
     for c in cols[1:]:
         expect = expect | c
     ref = golden.encode(expect)
-    for kernel in ("xla", "pallas"):
-        codec = WahCodec(kernel=kernel)
-        got = codec.logical_many(streams, "or", n)
-        np.testing.assert_array_equal(got, ref, err_msg=kernel)
-        # and/xor too
-        ea = cols[0]
-        ex = cols[0]
-        for c in cols[1:]:
-            ea = ea & c
-            ex = ex ^ c
-        np.testing.assert_array_equal(
-            codec.logical_many(streams, "and", n), golden.encode(ea)
-        )
-        np.testing.assert_array_equal(
-            codec.logical_many(streams, "xor", n), golden.encode(ex)
-        )
+    codec = WahCodec()
+    got = codec.logical_many(streams, "or", n)
+    np.testing.assert_array_equal(got, ref)
+    # and/xor too
+    ea = cols[0]
+    ex = cols[0]
+    for c in cols[1:]:
+        ea = ea & c
+        ex = ex ^ c
+    np.testing.assert_array_equal(
+        codec.logical_many(streams, "and", n), golden.encode(ea)
+    )
+    np.testing.assert_array_equal(
+        codec.logical_many(streams, "xor", n), golden.encode(ex)
+    )
 
 
 def test_logical_many_nonpow2_fanin():
@@ -104,19 +103,17 @@ def test_logical_many_nonpow2_fanin():
     cols = [random_bitmap(n, d, seed=80 + i)
             for i, d in enumerate([0.02, 0.6, 0.0, 1.0, 1 / 32])]
     streams = [golden.encode(c) for c in cols]
-    for kernel in ("xla", "pallas"):
-        codec = WahCodec(kernel=kernel)
-        for op, fold in (("or", np.bitwise_or), ("and", np.bitwise_and),
-                         ("xor", np.bitwise_xor)):
-            want = golden.encode(fold.reduce(cols))
-            np.testing.assert_array_equal(
-                codec.logical_many(streams, op, n), want,
-                err_msg=f"{kernel}/{op}",
-            )
+    codec = WahCodec()
+    for op, fold in (("or", np.bitwise_or), ("and", np.bitwise_and),
+                     ("xor", np.bitwise_xor)):
+        want = golden.encode(fold.reduce(cols))
+        np.testing.assert_array_equal(
+            codec.logical_many(streams, op, n), want, err_msg=op
+        )
 
 
 def test_logical_many_wide_fanin():
-    """k=64 — real query fan-in; O(log k) tree depth on both routes."""
+    """k=64 — real query fan-in; O(log k) tree depth."""
     n = 992 + 11
     cols = [
         random_bitmap(n, (0.03 if i % 3 else 0.5), seed=300 + i)
@@ -124,12 +121,9 @@ def test_logical_many_wide_fanin():
     ]
     streams = [golden.encode(c) for c in cols]
     want = golden.encode(np.bitwise_or.reduce(cols))
-    for kernel in ("xla", "pallas"):
-        codec = WahCodec(kernel=kernel)
-        np.testing.assert_array_equal(
-            codec.logical_many(streams, "or", n), want, err_msg=kernel
-        )
+    codec = WahCodec()
+    np.testing.assert_array_equal(codec.logical_many(streams, "or", n), want)
     wanta = golden.encode(np.bitwise_and.reduce(cols))
     np.testing.assert_array_equal(
-        WahCodec(kernel="xla").logical_many(streams, "and", n), wanta
+        codec.logical_many(streams, "and", n), wanta
     )

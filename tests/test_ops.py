@@ -6,9 +6,9 @@ import pytest
 
 from conftest import clustered_bitmap, random_bitmap
 from wah_tpu import golden
-from wah_tpu.constants import ONES
+from wah_tpu.constants import BIT31, ONES
 from wah_tpu.ops import bits, decode as jdec, encode as jenc
-from wah_tpu.ops.compact import compact, expand, ceil_log2
+from cases import GRID
 
 U = np.uint32
 
@@ -27,45 +27,33 @@ def test_merge_matches_golden(rng):
     np.testing.assert_array_equal(out, golden.merge_chunks(chunks))
 
 
-def test_compact_random(rng):
-    n = 512
-    for trial in range(5):
-        ok = rng.random(n) < 0.4
-        vals = rng.integers(0, 2**31, size=n, dtype=U)
-        targets = np.cumsum(ok) - 1
-        d = np.arange(n) - targets
-        (out,), okf = compact(
-            [jnp.asarray(vals)],
-            jnp.asarray(ok),
-            jnp.asarray(d.astype(np.int32)),
-            ceil_log2(n),
+def test_block_words_slots_and_counts():
+    """block_words: one run end per word slot, slots 0..count-1 in
+    order, values equal to the golden stream of each block."""
+    data = random_bitmap(992 * 3, 1 / 16, seed=4)
+    data[992 : 992 + 500] = 0
+    chunks = bits.repartition_chunks(jnp.asarray(data)).reshape(3, 1024)
+    value, end, slot, counts = map(np.asarray, jenc.block_words(chunks))
+    for b in range(3):
+        np.testing.assert_array_equal(slot[b][end[b]], np.arange(counts[b]))
+        np.testing.assert_array_equal(
+            value[b][end[b]], golden.encode(data[992 * b : 992 * (b + 1)])
         )
-        k = int(ok.sum())
-        np.testing.assert_array_equal(np.asarray(out)[:k], vals[ok])
-        np.testing.assert_array_equal(np.asarray(okf)[:k], True)
-        assert not np.asarray(okf)[k:].any()
 
 
-def test_expand_random(rng):
-    n, m = 512, 100
-    for trial in range(5):
-        lens = rng.integers(1, 6, size=m)
-        offs = np.cumsum(lens) - lens
-        assert offs[-1] + lens[-1] <= n
-        vals = rng.integers(0, 2**31, size=m, dtype=U)
-        d = (offs - np.arange(m)).astype(np.int32)
-        pad = lambda x, f: np.concatenate([x, np.full(n - m, f, x.dtype)])
-        (out,), okf = expand(
-            [jnp.asarray(pad(vals, U(0)))],
-            jnp.asarray(pad(np.ones(m, bool), False)),
-            jnp.asarray(pad(d, np.int32(0))),
-            ceil_log2(n),
-        )
-        out, okf = np.asarray(out), np.asarray(okf)
-        np.testing.assert_array_equal(out[offs], vals)
-        expected_ok = np.zeros(n, bool)
-        expected_ok[offs] = True
-        np.testing.assert_array_equal(okf, expected_ok)
+def test_expand_window_drops_dead_words():
+    """Words outside the live mask must not reach the span, even where
+    their (clamped) offsets collide with live ones."""
+    C = 64
+    words = np.full(C, U(BIT31 | 2))  # zero fills of 2 chunks
+    words[0] = U(0x1234)  # live literal at chunk 0
+    off = np.clip(np.arange(C) * 2 - 1, 0, C).astype(np.int32)
+    ok = np.zeros(C, bool)
+    ok[:3] = True  # literal, then fills at 1 and 3 (chunks 1..4)
+    words[3] = U(0x5555)  # dead word aimed at chunk 5
+    out = np.asarray(jdec.expand_window(
+        jnp.asarray(words), jnp.asarray(off), jnp.asarray(ok)))
+    assert out[0] == 0x1234 and not out[1:6].any()
 
 
 # ---------- encode ----------
@@ -149,3 +137,21 @@ def test_decode_n_ints_past_int32_bit_count():
     nc = nb * 1024
     assert int(n_ints) == nc - nc // 32 == (31 * nc + 31) // 32
     assert int(jnp.count_nonzero(ints)) == 0
+
+
+@pytest.mark.parametrize("name", sorted(GRID))
+def test_decode_grid_matches_golden(name):
+    """The scatter + cummax decode over the shared case grid."""
+    data = GRID[name]()
+    stream = golden.encode(data)
+    cap = -(-golden.chunk_count(len(data)) // 1024) * 1024
+    M = max(1024, stream.shape[0])
+    padded = np.zeros(M, dtype=U)
+    padded[: stream.shape[0]] = stream
+    ints, n_ints = jax.jit(jdec.decode, static_argnums=2)(
+        jnp.asarray(padded), np.int32(stream.shape[0]), cap
+    )
+    np.testing.assert_array_equal(np.asarray(ints)[: len(data)], data)
+    np.testing.assert_array_equal(
+        np.asarray(ints)[: int(n_ints)], golden.decode(stream)
+    )

@@ -3,7 +3,8 @@ execution path must produce the golden stream and invert it exactly.
 
 This generalizes the reference's fixed crafted vectors (tests.cpp) into
 a property: encode/decode are a bijection between bitmaps and valid WAH
-streams, across golden / pure-XLA / native C++ paths, at any size
+streams, across golden / pure-XLA / native C++ paths,
+at any size
 (including non-block, non-warp multiples the reference leaves UB —
 SURVEY.md §4.1.1-2).
 """
@@ -107,15 +108,11 @@ def test_xla_matches_golden(data):
 @given(st.data())
 @settings(max_examples=8, deadline=None,
           suppress_health_check=[HealthCheck.too_slow])
-def test_flattened_batch_roundtrip(data_st):
-    """Property: for ANY set of equal-length columns, the flattened
-    batch kernels (interpreted) produce each column's golden stream and
-    invert it exactly (encode_padded_batch + decode_batch)."""
-    import jax
-
-    from wah_tpu.constants import BLOCK_CHUNKS, BLOCK_INTS
-    from wah_tpu.golden import chunk_count
-    from wah_tpu.ops.pallas import decode_kernel, encode_kernel
+def test_batch_roundtrip(data_st):
+    """Property: for ANY set of equal-length columns, the batched encode
+    produces each column's golden stream, and the batch decode inverts
+    it exactly."""
+    from wah_tpu import WahCodec
 
     C = data_st.draw(st.integers(min_value=1, max_value=5))
     n = data_st.draw(st.integers(min_value=1, max_value=2 * 992 + 40))
@@ -125,35 +122,11 @@ def test_flattened_batch_roundtrip(data_st):
     for i, r in enumerate(raw):
         cols[i, : min(n, len(r))] = r[:n]
 
-    nv = chunk_count(n)
-    nb = max(
-        encode_kernel.TILE_BLOCKS,
-        1 << (-(-nv // BLOCK_CHUNKS) - 1).bit_length(),
-    )
-    padded = np.zeros((C, nb * BLOCK_INTS), np.uint32)
-    padded[:, :n] = cols
-    words, totals = jax.jit(encode_kernel.encode_padded_batch)(
-        padded, np.int32(nv)
-    )
-    words = np.asarray(words).reshape(C, -1)
-    totals = np.asarray(totals)
-    refs = [golden.encode(cols[c]) for c in range(C)]
+    codec = WahCodec()
+    words, totals = codec.compress_batch(cols)
     for c in range(C):
-        assert totals[c] == len(refs[c]), c
-        np.testing.assert_array_equal(words[c, : totals[c]], refs[c])
-
-    # decode the streams back through the flattened batch decoder
-    dnb = max(decode_kernel.TILE_BLOCKS,
-              1 << (-(-nv // BLOCK_CHUNKS) - 1).bit_length())
-    cap = dnb * BLOCK_CHUNKS
-    Mcap = max(1024, -(-int(totals.max()) // 1024) * 1024)
-    w2 = np.zeros((C, Mcap), np.uint32)
-    for c in range(C):
-        w2[c, : totals[c]] = refs[c]
-    flat = jax.jit(
-        lambda w, m: decode_kernel.decode_batch(w, m, cap)
-    )(w2, totals.astype(np.int32))
-    flat = np.asarray(flat).reshape(C, -1)
-    out_ints = (31 * nv + 31) // 32
-    for c in range(C):
-        np.testing.assert_array_equal(flat[c, :out_ints][:n], cols[c], err_msg=str(c))
+        ref = golden.encode(cols[c])
+        assert totals[c] == len(ref), c
+        np.testing.assert_array_equal(words[c, : totals[c]], ref)
+    out = codec.decompress_batch(words, totals, out_ints=n)
+    np.testing.assert_array_equal(out, cols)

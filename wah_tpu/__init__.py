@@ -1,17 +1,17 @@
-"""wah_tpu — TPU-native WAH (Word-Aligned Hybrid) bitmap compression.
+"""wah_tpu — WAH (Word-Aligned Hybrid) bitmap compression in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the GPU-WAH codec
-(Andrzejewski & Wrembel, DEXA 2010): 31-bit-chunk word-aligned hybrid
-run-length encoding with complete fill coalescing inside 1024-chunk
-blocks, bit-compatible with the reference GPU implementation.
+A JAX re-design of the GPU-WAH codec (Andrzejewski & Wrembel, DEXA
+2010): 31-bit-chunk word-aligned hybrid run-length encoding with
+complete fill coalescing inside 1024-chunk blocks, bit-compatible with
+the reference GPU implementation.
 
 Public API:
   compress(bitmap)   -> (stream, timings)     host convenience
   decompress(stream) -> (bitmap, timings)
-  WahCodec           class with kernel selection + jit caching
-  ops.encode / ops.decode      jittable device-level pipelines
-  ops.pallas.*                 fused single-pass TPU kernels
-  parallel.*                   multi-chip sharded encode/decode
+  WahCodec           class with execution-path selection + jit caching
+  backend            platform -> execution path; compile cache
+  ops.encode / ops.decode      jittable XLA pipelines
+  parallel.*                   sharded encode/decode over a mesh
   golden             NumPy oracle
 """
 from . import constants, golden

@@ -67,13 +67,13 @@ def main(argv=None) -> None:
         if name != "info":
             sp.add_argument("-o", "--output")
             sp.add_argument("--kernel", default="auto",
-                            choices=["auto", "xla", "pallas", "native"])
+                            choices=["auto", "xla", "native"])
     sp = sub.add_parser("logical")
     sp.add_argument("op", choices=["and", "or", "xor", "andnot"])
     sp.add_argument("inputs", nargs="+")
     sp.add_argument("-o", "--output", required=True)
     sp.add_argument("--kernel", default="auto",
-                    choices=["auto", "xla", "pallas"])
+                    choices=["auto", "xla"])
     args = p.parse_args(argv)
 
     if args.cmd == "logical":
@@ -157,4 +157,7 @@ def main(argv=None) -> None:
 
 
 if __name__ == "__main__":
+    from .backend import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,8 +1,8 @@
-"""Host-facing codec API — the TPU equivalent of the reference's two
-public entry points compress() / decompress() (reference: compress.h:12-18,
-decompress.h:11-17), including their three phase timings per direction.
+"""Host-facing codec API — the reference's two public entry points
+compress() / decompress() (reference: compress.h:12-18, decompress.h:11-17),
+including their three phase timings per direction.
 
-Differences by design (TPU/XLA execution model):
+Differences by design:
   * device arrays are padded to static shape buckets (powers of two in
     blocks) so repeated calls hit the jit cache instead of recompiling;
   * the compressed stream is returned exactly sized (the valid prefix of
@@ -19,6 +19,7 @@ from functools import partial
 import jax
 import numpy as np
 
+from . import backend
 from .constants import BIT31, BLOCK_CHUNKS, BLOCK_INTS, LEN_MASK, ONES31
 from .golden import chunk_count
 from .ops import decode as _decode_ops
@@ -32,17 +33,29 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
-# Chunk positions are int32 throughout the kernels: one bitmap is capped
-# at 2^31 - 1 chunks (~8.3 GB). Checked at every compress entry; larger
-# datasets shard over columns/segments (compress_batch, ShardedCodec).
-MAX_INTS_PER_BITMAP = (((1 << 31) - 1) * 31) // 32
+# Chunk positions are int32 throughout the ops, which also form
+# position + capacity: a chunk capacity of at most 2^30 keeps both below
+# 2^31. Capacities are powers of two in blocks, so one bitmap is capped at
+# 2^20 blocks (1,040,187,392 ints, 4,160,749,568 B). Checked at every
+# compress and decompress entry; larger bitmaps go through the *_segments
+# methods.
+MAX_CHUNKS = 1 << 30
+MAX_INTS_PER_BITMAP = (MAX_CHUNKS // BLOCK_CHUNKS) * BLOCK_INTS
 
 
 def _check_size(n: int) -> None:
     if n > MAX_INTS_PER_BITMAP:
         raise ValueError(
-            f"bitmap of {n} ints exceeds the 2^31-1 chunk (~8.3 GB) "
-            "int32 position limit; split into columns or segments"
+            f"bitmap of {n} ints exceeds the {MAX_INTS_PER_BITMAP}-int "
+            "(2^30-chunk) limit of one call; use the *_segments methods"
+        )
+
+
+def _check_chunks(n_chunks: int) -> None:
+    if n_chunks > MAX_CHUNKS:
+        raise ValueError(
+            f"stream expands to {n_chunks} chunks, past the 2^30-chunk "
+            "limit of one call; use the *_segments methods"
         )
 
 
@@ -77,188 +90,33 @@ def checked_stream(words: np.ndarray) -> np.ndarray:
 class WahCodec:
     """Shape-bucketed, jit-cached WAH codec.
 
-    kernel: "xla" (pure-JAX ops), "pallas" (fused TPU kernels), or
-    "auto" (pallas on TPU backends, xla elsewhere).
+    kernel: "auto" (the platform's path, backend.execution_path) or
+    "xla" (the plain jax.numpy ops).
     """
 
     def __init__(self, kernel: str = "auto"):
-        assert kernel in ("auto", "xla", "pallas"), kernel
+        backend.resolve(kernel)
         self._kernel = kernel
-        # jit caches keyed by shape bucket (+ kernel/op variants)
+        # jit caches keyed by shape bucket (+ op variants)
         self._encode_fns: dict[tuple, object] = {}
         self._decode_fns: dict[tuple, object] = {}
 
-    # -- kernel selection -------------------------------------------------
-    def _use_pallas(self) -> bool:
-        if self._kernel == "xla":
-            return False
-        if self._kernel == "pallas":
-            return True
-        if jax.default_backend() in ("cpu",):
-            return False
-        try:  # auto: fall back to XLA if the fused kernels are absent
-            from .ops.pallas import encode_kernel  # noqa: F401
+    @property
+    def path(self) -> str:
+        return backend.resolve(self._kernel)
 
-            return True
-        except ImportError:
-            return False
-
-    def _encode_fn(self, nb: int, stitch: str = "auto",
-                   adaptive: bool = False, route_bits: int = 10):
-        use_pallas = self._use_pallas()
-        if not use_pallas:
-            stitch = "auto"  # XLA path has no stitch variants
-            adaptive = False
-            route_bits = 10
-        if adaptive:  # the adaptive tiers cover the all-literal regime
-            route_bits = 10
-        key = (nb, use_pallas, stitch, adaptive, route_bits)
-        fn = self._encode_fns.get(key)
+    def _encode_fn(self, nb: int):
+        fn = self._encode_fns.get(nb)
         if fn is None:
-            if use_pallas:
-                from .ops.pallas import encode_kernel
-
-                fn = jax.jit(
-                    partial(encode_kernel.encode_padded, stitch=stitch,
-                            adaptive=adaptive, route_bits=route_bits)
-                )
-            else:
-                fn = jax.jit(_encode_ops.encode_padded)
-            self._encode_fns[key] = fn
+            fn = jax.jit(_encode_ops.encode_padded)
+            self._encode_fns[nb] = fn
         return fn
 
-    @staticmethod
-    def _stitch_hint(data: np.ndarray) -> str:
-        """Static stitch-variant choice. Through round 4 this sampled
-        the bitmap and chose the flush-proportional v1 accumulator for
-        near-empty data (2^-16: 5.11 vs 5.44 ms then). The round-5 v4
-        RMW rework of the v3 stitch (stitch2._body_v4: pre-zeroed
-        window + one fused 2-tile RMW per row) made v3 faster at EVERY
-        protocol density (measured v5e, 130 MB full pipeline: 2^-16
-        v3 4.39 vs v1 4.73 ms; 2^-8 4.23 vs 4.79; 2^-4 4.24 vs ~10),
-        so the hint is now constant. v1 remains a tested independent
-        implementation (tests + tpu_differential)."""
-        return "v3"
-
-    @staticmethod
-    def _adaptive_hint(data: np.ndarray) -> bool:
-        """Static choice of the data-adaptive encode kernel variant
-        (see encode_kernel._resolve_adaptive) from the same strided
-        host sample as _stitch_hint: the adaptive variant's in-kernel
-        fast paths fire only when whole tiles are literal runs. The
-        word-level test (no sampled 32-bit word is 0x0 or all-ones) is
-        a cheap APPROXIMATION of chunk fillability, not an equivalence:
-        after the 32->31 repartition a chunk can be all-zero/all-one
-        without any 32-bit word being constant (fills straddling word
-        boundaries), so fill-bearing data can still pick the adaptive
-        variant and take its slower taken-cond path. Speed-only: the
-        kernel tiers re-check per tile, so both variants are bit-exact
-        on any data. Measured v5e protocol (130 MB): density 2^-1
-        encode 24.3 -> 39.3 GB/s with the adaptive variant, but 24.3 ->
-        21.6 at 2^-4 (taken cond regions cost); choose it only when the
-        sample shows ~no fillable words."""
-        step = max(1, data.shape[0] >> 16)
-        sample = data[::step]
-        if sample.shape[0] == 0:
-            return False
-        fillable = int(np.count_nonzero(sample == 0)) + int(
-            np.count_nonzero(sample == np.uint32(0xFFFFFFFF))
-        )
-        return fillable == 0
-
-    @staticmethod
-    def _route_bits_hint(data: np.ndarray) -> int:
-        """Static compaction pass count (encode_kernel route_bits) from
-        the same strided sample as _stitch_hint. The monotone log-shift
-        compaction needs ceil(log2(dmax+1)) passes where dmax is the
-        largest per-block routing displacement = suppressed (non-run-
-        start) chunks before a lane. A chunk is suppressed iff it and
-        its predecessor are same-type fills, so for Bernoulli-ish data
-        E[suppressed/block] = mu ~= 1024*(z^2 + o^2) with z/o the
-        sampled all-zero/all-one word fractions; bits covers mu plus a
-        6-sigma binomial margin. NOT a guarantee (clustered data can
-        exceed it): the kernel compares the true per-tile dmax and
-        raises a violation flag, and compress() re-runs with the full
-        10 passes — optimistic-with-fallback, same pattern as the
-        bounded distributed stitch. Measured v5e (130 MB): 2^-4
-        30.7 -> 32.5 GB/s (bits 6), 2^-2 29.8 -> 32.4 (bits 5).
-        Bits 9 is skipped (one pass saved rarely survives a clustered
-        outlier's fallback risk)."""
-        step = max(1, data.shape[0] >> 16)
-        sample = data[::step]
-        ns = max(1, sample.shape[0])
-        z = np.count_nonzero(sample == 0) / ns
-        o = np.count_nonzero(sample == np.uint32(0xFFFFFFFF)) / ns
-        mu = 1024.0 * (z * z + o * o)
-        thr = mu + 6.0 * np.sqrt(mu + 1.0) + 8.0
-        bits = max(5, int(np.ceil(np.log2(thr))))
-        return bits if bits <= 8 else 10
-
-    @staticmethod
-    def _decode_adaptive_hint(words: np.ndarray) -> bool:
-        """Adaptive decode hint from the STREAM: the decode trivial
-        tier fires when every covering word covers one chunk, i.e. the
-        stream is (almost) all literals. Sample the words; choose the
-        adaptive variant only when no fill words show up (protocol
-        measurements mirror encode: +49% at 2^-1, -7% at 2^-4)."""
-        step = max(1, words.shape[0] >> 16)
-        sample = words[::step]
-        if sample.shape[0] == 0:
-            return False
-        fills = int(np.count_nonzero(sample & np.uint32(BIT31)))
-        return fills == 0
-
-    @staticmethod
-    def _decode_route_hint(words: np.ndarray):
-        """Static expansion/forward-fill pass counts (ne, nc) for the
-        decode kernel's optimistic tier (decode_kernel._route_fill),
-        estimated from a strided STREAM sample — unlike the encode
-        hint, the stream itself is in hand, so the expansion ratio r
-        (mean chunks per word) and the fill-length tail are sampled
-        directly. Per output block the max expansion displacement is
-        1024 - consumed_words ~= 1024*(1 - 1/r); ne covers that plus a
-        6-sigma margin, nc covers 4x the sampled max fill length. Not a
-        guarantee (the kernel re-checks the exact per-tile bounds and
-        flags violations; decompress() falls back to the full variant).
-        Returns None (= full 10+10 passes) when either bound exceeds 8
-        bits — fill-heavy sparse streams route the whole range anyway.
-        Measured v5e (130 MB): decode 6.05 -> 5.41 ms at 2^-4
-        (24.0 GB/s), 5.86 -> 4.85 at 2^-2 (26.8 GB/s)."""
-        step = max(1, words.shape[0] >> 16)
-        sample = words[::step]
-        if sample.shape[0] == 0:
-            return None
-        is_fill = (sample & np.uint32(BIT31)) != 0
-        lens = np.where(is_fill, sample & np.uint32(LEN_MASK), 1)
-        r = float(lens.mean())  # expansion ratio (chunks per word)
-        s = 1024.0 * (1.0 - 1.0 / r)  # mean per-block displacement
-        thr_e = s + 6.0 * np.sqrt(s + 1.0) + 8.0
-        ne = max(1, int(np.ceil(np.log2(thr_e))))
-        nc = max(1, int(np.ceil(np.log2(4.0 * float(lens.max()) + 4.0))))
-        if ne > 8 or nc > 8:
-            return None
-        return ne, nc
-
-    def _decode_fn(self, M: int, cap: int, adaptive: bool = False,
-                   route=None):
-        use_pallas = self._use_pallas()
-        if not use_pallas:
-            adaptive = False
-            route = None
-        if adaptive:
-            route = None
-        key = (M, cap, use_pallas, adaptive, route)
+    def _decode_fn(self, M: int, cap: int):
+        key = (M, cap)
         fn = self._decode_fns.get(key)
         if fn is None:
-            if use_pallas:
-                from .ops.pallas import decode_kernel
-
-                fn = jax.jit(
-                    partial(decode_kernel.decode, chunk_capacity=cap,
-                            adaptive=adaptive, route=route)
-                )
-            else:
-                fn = jax.jit(partial(_decode_ops.decode, chunk_capacity=cap))
+            fn = jax.jit(partial(_decode_ops.decode, chunk_capacity=cap))
             self._decode_fns[key] = fn
         return fn
 
@@ -269,11 +127,8 @@ class WahCodec:
         """Compress C equal-length bitmap columns at once.
 
         data: (C, n) uint32. Returns (words (C, cap), totals (C,));
-        column c's stream is words[c, :totals[c]]. On TPU backends each
-        column runs the fused Pallas encode (lax.map — the column axis
-        is a sequential outer grid over full-chip kernels); elsewhere
-        the vmapped XLA pipeline. The reference would call compress()
-        per column (compress.h:12)."""
+        column c's stream is words[c, :totals[c]]. The reference would
+        call compress() per column (compress.h:12)."""
         data = np.ascontiguousarray(data, dtype=np.uint32)
         C, n = data.shape
         if n == 0:
@@ -281,42 +136,15 @@ class WahCodec:
         _check_size(n)
         nv = chunk_count(n)
         nb = _next_pow2(-(-nv // BLOCK_CHUNKS))
-        use_pallas = self._use_pallas()
-        if use_pallas:
-            # the flattened batch kernel needs whole grid tiles per
-            # column (pow2 already guaranteed by the bucketing)
-            from .ops.pallas.encode_kernel import TILE_BLOCKS
-
-            nb = max(nb, TILE_BLOCKS)
         padded = np.zeros((C, nb * BLOCK_INTS), dtype=np.uint32)
         padded[:, :n] = data
-        adaptive = use_pallas and self._adaptive_hint(data.reshape(-1))
-        key = ("batch_enc", C, nb, use_pallas, adaptive)
+        key = ("batch_enc", C, nb)
         fn = self._encode_fns.get(key)
         if fn is None:
-            if use_pallas:
-                from .ops.pallas import encode_kernel
-
-                # rows-layout entry point: the host reshape is free,
-                # while reshaping a (C, nb*992) DEVICE array to block
-                # rows is a full layout-changing HBM copy (~22 ms/GB
-                # measured, benchmarks/batch_bench.py)
-                fn = jax.jit(partial(encode_kernel.encode_rows_batch, C=C,
-                                     adaptive=adaptive))
-            else:
-                fn = jax.jit(_encode_ops.encode_batch, static_argnums=(1,))
+            fn = jax.jit(_encode_ops.encode_batch)
             self._encode_fns[key] = fn
-        if use_pallas:
-            words, totals = fn(
-                jax.device_put(padded.reshape(C * nb, BLOCK_INTS)),
-                n_valid_chunks=np.int32(nv),
-            )
-        else:  # static_argnums jit: nv must stay positional
-            words, totals = fn(jax.device_put(padded), np.int32(nv))
-        words = np.asarray(words)
-        if words.ndim == 1:  # flat Pallas batch output (see its doc)
-            words = words.reshape(C, -1)
-        return words, np.asarray(totals)
+        words, totals = fn(jax.device_put(padded), np.int32(nv))
+        return np.asarray(words), np.asarray(totals)
 
     def decompress_batch(
         self,
@@ -332,56 +160,20 @@ class WahCodec:
         if M == 0:
             return np.zeros((C, 0), np.uint32)
         # per-word invariants hold column-wise on the valid prefixes
-        validate_stream(words[np.arange(M)[None, :] < totals[:, None]])
+        live = np.arange(M)[None, :] < totals[:, None]
+        validate_stream(words[live])
         is_fill = (words & np.uint32(BIT31)) != 0
-        counts = np.where(is_fill, words & np.uint32(LEN_MASK), 1)
-        counts[np.arange(M)[None, :] >= totals[:, None]] = 0
-        col_chunks = counts.sum(axis=1)
-        n_chunks = int(col_chunks.max())
+        counts = np.where(is_fill & live, words & np.uint32(LEN_MASK), live)
+        n_chunks = int(counts.sum(axis=1).max())
+        _check_chunks(n_chunks)
         cap = _next_pow2(max(1, -(-n_chunks // BLOCK_CHUNKS))) * BLOCK_CHUNKS
-        # the flattened batch kernel requires equal per-column expansion
-        # (always true for compress_batch streams: equal-length columns)
-        uniform = bool((col_chunks == col_chunks[0]).all())
-        use_pallas = self._use_pallas() and uniform
-        if use_pallas:
-            from .ops.pallas.decode_kernel import TILE_BLOCKS as DTILE
-
-            cap = max(cap, DTILE * BLOCK_CHUNKS)
-            Mp = max(1024, -(-M // 1024) * 1024)
-            if Mp != M:
-                wpad = np.zeros((C, Mp), np.uint32)
-                wpad[:, :M] = words
-                words = wpad
-                M = Mp
-        adaptive = use_pallas and self._decode_adaptive_hint(
-            words.reshape(-1)
-        )
-        key = ("batch_dec", C, M, cap, use_pallas, adaptive)
+        key = ("batch_dec", C, M, cap)
         fn = self._decode_fns.get(key)
         if fn is None:
-            if use_pallas:
-                from .ops.pallas import decode_kernel
-
-                # flat-words entry point (see compress_batch note)
-                fn = jax.jit(
-                    partial(
-                        decode_kernel.decode_rows_batch,
-                        C=C,
-                        col_chunk_capacity=cap,
-                        adaptive=adaptive,
-                    )
-                )
-            else:
-                fn = jax.jit(
-                    partial(_decode_ops.decode_batch, chunk_capacity=cap)
-                )
+            fn = jax.jit(partial(_decode_ops.decode_batch, chunk_capacity=cap))
             self._decode_fns[key] = fn
-        dev_w = words.reshape(-1) if use_pallas else words
-        res = fn(jax.device_put(dev_w), ms=totals.astype(np.int32))
-        if use_pallas:  # flat return (see decode_kernel.decode_batch)
-            out = np.asarray(res).reshape(C, -1)
-        else:
-            out = np.asarray(res[0])
+        ints, _ = fn(jax.device_put(words), totals.astype(np.int32))
+        out = np.asarray(ints)
         if out_ints is not None:
             out = out[:, :out_ints]
         return out
@@ -399,6 +191,7 @@ class WahCodec:
         (decode + combine + re-encode); returns the compressed result."""
         from .ops import logical as _lops
 
+        _check_size(n_ints)
         a = np.ascontiguousarray(stream_a, dtype=np.uint32)
         b = np.ascontiguousarray(stream_b, dtype=np.uint32)
         M = _next_pow2(max(len(a), len(b), 1024))
@@ -409,9 +202,7 @@ class WahCodec:
         key = ("logical", op, M, n_ints)
         fn = self._encode_fns.get(key)
         if fn is None:
-            fn = jax.jit(
-                partial(_lops.logical_op, op=op, n_ints=n_ints)
-            )
+            fn = jax.jit(partial(_lops.logical_op, op=op, n_ints=n_ints))
             self._encode_fns[key] = fn
         words, total = fn(
             jax.device_put(pa), np.int32(len(a)),
@@ -425,7 +216,7 @@ class WahCodec:
         """Compress a bitmap of ANY size as block-aligned segments.
 
         The int32 chunk-position limit caps one compress() call at
-        ~8.3 GB (_check_size). Segments that are multiples of 992 ints
+        4,160,749,568 B (_check_size). Segments that are multiples of 992 ints
         start exactly at 1024-chunk block boundaries, and fill runs
         never cross those (SURVEY.md §0.1) — so concatenating the
         per-segment streams IS the whole bitmap's stream, bit-identical
@@ -473,7 +264,7 @@ class WahCodec:
     ) -> list[np.ndarray]:
         """Batched columns of ANY length: (C, n) -> C exact per-column
         streams (BASELINE configs[3] is 256 columns x 1 Gbit = 32 GB
-        logical, past both the ~8.3 GB position cap and chip HBM).
+        logical, past both the 4.16 GB position cap and device memory).
 
         Segments are block-aligned (segment_ints % 992 == 0), so each
         column's concatenated per-segment streams ARE its whole-column
@@ -577,6 +368,7 @@ class WahCodec:
         assert streams, "empty stream set"
         if len(streams) == 1:
             return streams[0].copy()
+        _check_size(n_ints)
         C = len(streams)
         M = _next_pow2(max(max(len(s) for s in streams), 1024))
         w2 = np.zeros((C, M), np.uint32)
@@ -590,9 +382,7 @@ class WahCodec:
         fn = self._encode_fns.get(key)
         if fn is None:
             fn = jax.jit(
-                partial(
-                    _lops.logical_reduce_flat, C=C, op=op, n_ints=n_ints
-                )
+                partial(_lops.logical_reduce_flat, C=C, op=op, n_ints=n_ints)
             )
             self._encode_fns[key] = fn
         words, total = fn(jax.device_put(w2.reshape(-1)), ms=ms)
@@ -623,22 +413,9 @@ class WahCodec:
         dev.block_until_ready()
         t.stop("to_device")
 
-        stitch = self._stitch_hint(data)
-        adaptive = self._adaptive_hint(data)
-        route_bits = 10 if adaptive else self._route_bits_hint(data)
-        use_pallas = self._use_pallas()
-        fn = self._encode_fn(nb_b, stitch, adaptive, route_bits)
+        fn = self._encode_fn(nb_b)
         t.start()
-        if use_pallas and not adaptive and route_bits < 10:
-            # optimistic pass count: re-run the full variant if any
-            # tile's routing displacement exceeded the hint (the flag
-            # is exact, so the fallback stream is always bit-correct)
-            words, total, viol = fn(dev, np.int32(nv))
-            if int(viol):
-                fn = self._encode_fn(nb_b, stitch, adaptive, 10)
-                words, total = fn(dev, np.int32(nv))
-        else:
-            words, total = fn(dev, np.int32(nv))
+        words, total = fn(dev, np.int32(nv))
         jax.block_until_ready((words, total))
         t.stop("kernel")
 
@@ -667,6 +444,7 @@ class WahCodec:
         n_chunks = int(
             np.where(is_fill, words & np.uint32(LEN_MASK), 1).sum()
         )
+        _check_chunks(n_chunks)
         nb = max(1, -(-n_chunks // BLOCK_CHUNKS))
         cap = _next_pow2(nb) * BLOCK_CHUNKS
         M = min(_next_pow2(max(m, 1024)), cap)
@@ -679,20 +457,9 @@ class WahCodec:
         dev.block_until_ready()
         t.stop("to_device")
 
-        adaptive = self._decode_adaptive_hint(words)
-        route = None if adaptive else self._decode_route_hint(words)
-        use_pallas = self._use_pallas()
-        fn = self._decode_fn(M, cap, adaptive, route)
+        fn = self._decode_fn(M, cap)
         t.start()
-        if use_pallas and route is not None:
-            # optimistic tier: exact in-kernel bound check; re-run the
-            # full variant on violation (output garbage until then)
-            ints, n_ints, viol = fn(dev, np.int32(m))
-            if int(viol):
-                fn = self._decode_fn(M, cap, adaptive, None)
-                ints, n_ints = fn(dev, np.int32(m))
-        else:
-            ints, n_ints = fn(dev, np.int32(m))
+        ints, n_ints = fn(dev, np.int32(m))
         jax.block_until_ready((ints, n_ints))
         t.stop("kernel")
 

@@ -1,7 +1,6 @@
 """WAH word-format constants.
 
-TPU-native re-expression of the reference format constants
-(reference: const.h:3-16). The compressed stream is a sequence of
+The reference format constants (reference: const.h:3-16). The compressed stream is a sequence of
 uint32 words:
 
   | word kind | bit 31 | bit 30 | bits 29..0 | meaning                         |

@@ -1,7 +1,7 @@
 """ctypes bindings for the native C++ host codec (csrc/wah_core.cpp).
 
 The reference's host layer is C++ (compress.cu/decompress.cu); this is
-the TPU build's native host runtime: a fast CPU WAH codec for stream
+this package's native host runtime: a fast CPU WAH codec for stream
 validation, differential testing against the device kernels, and a
 no-device fallback. Builds on first use (g++ -O3) into
 csrc/libwah_core.so; `available()` reports whether the toolchain

@@ -1,9 +1,9 @@
 """Bit-repartition primitives: 32-bit words <-> 31-bit WAH chunks.
 
-TPU-native re-expression of the reference warp-shuffle repartition
-(reference: kernels.cu:72-79 encode, kernels.cu:369-385 decode) as pure
-vector bit arithmetic on the VPU — no lane-crossing shuffles needed; the
-lane-neighbor terms become statically shifted views of the same array.
+The reference warp-shuffle repartition (reference: kernels.cu:72-79
+encode, kernels.cu:369-385 decode) as pure elementwise bit arithmetic —
+no lane-crossing shuffles needed; the lane-neighbor terms become
+statically shifted views of the same array.
 
 Layout contract (reference: tests.cpp:94-97): logical bit i of the bitmap
 is bit (i % 32), LSB-first, of uint32 word i // 32; chunk k holds logical

@@ -1,20 +1,20 @@
 """Pure-JAX (XLA) WAH decoder.
 
-TPU-native inversion of the reference decode pipeline
-(getCounts -> scan -> decompressWords -> mergeWords,
-decompress.cu:18-141, kernels.cu:291-385). The reference's load-imbalanced
-per-thread fill loops (kernels.cu:346-348) become a monotone log-shift
-expansion (each compressed word routed to its output start position)
-followed by a cummax forward-fill that recovers the covering word's fill
-type at every output chunk — O(log n) vector passes, perfectly balanced.
+The reference decode pipeline (getCounts -> scan -> decompressWords ->
+mergeWords, decompress.cu:18-141, kernels.cu:291-385) as XLA passes. The
+reference's load-imbalanced per-thread fill loops (kernels.cu:346-348)
+become a scatter of each compressed word's index to its output start
+position (the exclusive scan of the word counts), a cummax forward fill
+of that index, and a gather of the covering word at every output chunk —
+a fixed number of bandwidth-bound passes, perfectly balanced.
 
 The core primitive is `decode_span`: expand an arbitrary window
 [base, base + chunk_capacity) of the stream's chunk space. Because every
 compressed word expands to >= 1 chunk, at most `chunk_capacity` words can
 cover a span of that many chunks, so the span decoder windows the stream
-with a dynamic slice of static size `chunk_capacity` — this is what makes
-both the sharded multi-chip decoder (each shard owns a chunk range) and
-the Pallas block decoder possible with fully static shapes.
+with a gather of static size `chunk_capacity` — this is what makes
+the sharded multi-device decoder (each shard owns a chunk range) possible
+with fully static shapes.
 
 Shapes are static: the caller supplies a chunk capacity; true sizes are
 returned as traced scalars.
@@ -26,7 +26,6 @@ import jax.numpy as jnp
 
 from ..constants import BIT31, BIT3130, LEN_MASK, ONES31
 from . import bits
-from .compact import ceil_log2, expand
 
 __all__ = [
     "word_counts",
@@ -39,11 +38,9 @@ __all__ = [
 _U = jnp.uint32
 _I = jnp.int32
 
-# forward-fill type codes packed into the low 2 bits of the cummax key
-_T_ZERO, _T_ONES, _T_LIT = 1, 2, 3
-
-# offset sentinel for padded window slots: larger than any valid chunk
-# offset (max stream 2^30 chunks) but safe against int32 overflow
+# offset sentinel for window slots past the stream: no valid chunk offset
+# is larger (a stream holds at most 2^30 chunks), and it is safe against
+# int32 overflow
 _FAR = 1 << 30
 
 
@@ -63,36 +60,31 @@ def expand_window(
     """Expand a word window into the (C,) chunk span it covers.
 
     win_words: (C,) compressed words; off_local: (C,) their start chunk
-    positions relative to the span, clamped to [0, C] (non-decreasing,
-    strictly increasing over live words except a single 0-clamp at the
-    head); ok: live mask (a prefix). Returns chunks (C,) with garbage
+    positions relative to the span, clamped to [0, C] (strictly
+    increasing over live words: only the head word can be clamped to 0);
+    ok: live mask. The live words cover the span from chunk 0 without
+    gaps, as a stream's words do. Returns chunks (C,) with garbage
     beyond the covered range (caller masks by span length).
     """
     C = win_words.shape[0]
-    is_fill = (win_words & _U(BIT31)) != 0
-    is_ones = (win_words & _U(BIT3130)) == _U(BIT3130)
-    # chunk value at the word's start position (fills cover it too)
-    val0 = jnp.where(
-        is_fill, jnp.where(is_ones, _U(ONES31), _U(0)), win_words
+    j = jnp.arange(C, dtype=_I)
+    # each live word writes its window index + 1 at its start chunk
+    # (starts are distinct); dead ones aim past the end, each at its own
+    # index, and are dropped. cummax then gives every chunk its covering
+    # word (0: none). Indices stay below C + 1, so nothing wraps.
+    dest = jnp.where(ok, off_local, C + j)
+    starts = jnp.zeros((C,), _I).at[dest].set(
+        j + 1, mode="drop", unique_indices=True
     )
-    t = jnp.where(
-        is_fill, jnp.where(is_ones, _I(_T_ONES), _I(_T_ZERO)), _I(_T_LIT)
-    )
-    # cummax key: start offset in the high bits, fill type in the low 2
-    key = (off_local << 2) | t
-
-    i = jnp.arange(C, dtype=_I)
-    d = off_local - i  # >= 0 and non-decreasing over live words
-    (val_d, key_d), ok_d = expand([val0, key], ok, d, ceil_log2(C))
-    val_d = jnp.where(ok_d, val_d, _U(0))
-    key_d = jnp.where(ok_d, key_d, _I(0))
-
-    cm = jax.lax.cummax(key_d, axis=0)
-    is_start = (cm >> 2) == i
-    covered_ones = (cm & 3) == _T_ONES
-    return jnp.where(
-        is_start, val_d, jnp.where(covered_ones, _U(ONES31), _U(0))
-    )
+    cover = jax.lax.cummax(starts, axis=0)
+    w = jnp.take(win_words, jnp.maximum(cover - 1, 0), mode="clip",
+                 indices_are_sorted=True)
+    # a literal covers only its own start chunk, so the chunk is the
+    # literal there and the fill's value everywhere else
+    is_fill = (w & _U(BIT31)) != 0
+    is_ones = (w & _U(BIT3130)) == _U(BIT3130)
+    val = jnp.where(is_fill, jnp.where(is_ones, _U(ONES31), _U(0)), w)
+    return jnp.where(cover > 0, val, _U(0))
 
 
 def decode_span(
@@ -103,8 +95,8 @@ def decode_span(
     Returns (chunks (chunk_capacity,), n_chunks_total) where
     n_chunks_total is the full expanded length of the stream; span chunks
     at or beyond n_chunks_total - base are zero. `base` may be a traced
-    scalar — this is the unit of work one shard (or one Pallas grid step)
-    owns in the distributed decoder.
+    scalar — this is the unit of work one shard owns in the distributed
+    decoder.
     """
     M = words.shape[0]
     C = chunk_capacity
@@ -121,15 +113,14 @@ def decode_span(
         jnp.maximum(M - 1, 0),
     )
 
-    def pad(x, fill):
-        return jnp.concatenate(
-            [x, jnp.full((C,), fill, dtype=x.dtype)], axis=-1
-        )
-
-    win_words = jax.lax.dynamic_slice(pad(words, 0), (lo,), (C,))
-    win_off = jax.lax.dynamic_slice(pad(offsets, _FAR), (lo,), (C,))
-    win_cnt = jax.lax.dynamic_slice(pad(counts, 0), (lo,), (C,))
+    # the window words[lo : lo + C], read past the end as padding (a
+    # gather, so no padded copy of the stream is made)
     idx = lo + jnp.arange(C, dtype=_I)
+    win_words = jnp.take(words, idx, mode="fill", fill_value=0,
+                         unique_indices=True, indices_are_sorted=True)
+    win_off = jnp.take(offsets, idx, mode="fill", fill_value=_FAR,
+                       unique_indices=True, indices_are_sorted=True)
+    win_cnt = word_counts(win_words, m - lo)
 
     ok = (idx < m) & (win_off < base + C) & (win_off + win_cnt > base)
     off_local = jnp.clip(win_off - base, 0, C)
@@ -165,7 +156,7 @@ def decode(
     chunks, n_chunks = decode_chunks(words, m, chunk_capacity)
     ints = bits.merge_chunks(chunks)
     # ceil(31*n/32) = n - n//32, overflow-free: 31*n_chunks wraps int32
-    # past n_chunks = 69,273,666 (~268 MB bitmaps; see pallas/decode_kernel)
+    # past n_chunks = 69,273,666 (~268 MB bitmaps)
     n_ints = n_chunks - n_chunks // 32
     return ints, n_ints
 
@@ -180,3 +171,4 @@ def decode_batch(
     """
     f = jax.vmap(lambda w, m: decode(w, m, chunk_capacity))
     return f(words.astype(_U), ms.astype(_I))
+

@@ -1,18 +1,19 @@
 """Pure-JAX (XLA) WAH encoder.
 
-TPU-native pipeline replacing the reference's warp/shared-memory hierarchy
-(compressData, kernels.cu:51-262) with vectorized masks and scans over a
-(num_blocks, 1024) chunk array:
+The reference's warp/shared-memory hierarchy (compressData,
+kernels.cu:51-262) re-expressed as vectorised masks and scans over a
+(num_blocks, 1024) chunk array, and its scan-then-moveData stitch
+(compress.cu:133-166, kernels.cu:273-280) as one scatter:
 
-  repartition -> classify -> run-start mask -> cumsum word index ->
-  cummax covering-start -> run lengths -> word values ->
-  per-block log-shift compaction -> block-count scan -> global stitch.
+  repartition -> classify -> run starts / ends -> cumsum word slot ->
+  cummax run start -> word values -> block-count exclusive scan ->
+  scatter each run's word to offsets[block] + slot.
 
 Semantics match the reference kernel exactly: complete run-length
 coalescing of fill chunks within each 1024-chunk block, never across
 blocks; literals always emitted verbatim (see golden.py and SURVEY.md
 section 0.1). Output is (capacity,) uint32 plus a word count — all shapes
-static, the compressed stream is the valid prefix.
+static, the compressed stream is the valid prefix (zero after it).
 """
 from __future__ import annotations
 
@@ -30,13 +31,21 @@ from ..constants import (
     WORD_ZEROS,
 )
 from . import bits
-from .compact import ceil_log2, compact, shift_left, shift_right
 from ..golden import chunk_count
 
-__all__ = ["classify", "encode_blocks", "stitch", "encode", "encode_batch"]
+__all__ = ["classify", "block_words", "encode_padded", "encode", "encode_batch"]
 
 _U = jnp.uint32
 _I = jnp.int32
+
+
+def _shift(x: jnp.ndarray, k: int, fill) -> jnp.ndarray:
+    """y[..., i] = x[..., i-k] along the last axis (k > 0: right, k < 0:
+    left); positions shifted in from outside take `fill`."""
+    pad = jnp.full((*x.shape[:-1], abs(k)), fill, dtype=x.dtype)
+    if k > 0:
+        return jnp.concatenate([pad, x[..., :-k]], axis=-1)
+    return jnp.concatenate([x[..., -k:], pad], axis=-1)
 
 
 def classify(chunks: jnp.ndarray) -> jnp.ndarray:
@@ -49,13 +58,12 @@ def classify(chunks: jnp.ndarray) -> jnp.ndarray:
     )
 
 
-def encode_blocks(
-    chunks: jnp.ndarray, n_valid_chunks=None, chunk_base=0
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Encode (nb, 1024) chunks -> (staging (nb, 1024) uint32, counts (nb,) int32).
+def block_words(chunks: jnp.ndarray, n_valid_chunks=None, chunk_base=0):
+    """Per-chunk view of the (nb, 1024) blocks' words.
 
-    Each staging row holds that block's compressed words as a dense prefix
-    of `counts[b]` words, zero elsewhere (zero is never a valid word).
+    Returns (value, end, slot, counts): the word of the run ending at
+    each chunk (meaningful where `end`), whether the chunk ends a run,
+    the run's word slot within its block, and each block's word count.
     `n_valid_chunks` (static or traced scalar) marks trailing padding
     chunks as non-emitting; `chunk_base` is the global chunk index of
     chunks[0, 0] (nonzero on shards of a distributed encode, where
@@ -76,21 +84,17 @@ def encode_blocks(
     v = gpos < jnp.asarray(n_valid_chunks, dtype=_I)
 
     # run starts (reference run-end flags inverted; kernels.cu:126-141)
-    prev_t = shift_right(t, 1, fill=-1)  # block-local: col 0 always starts
+    prev_t = _shift(t, 1, -1)  # block-local: col 0 always starts
     start = v & ((t != prev_t) | (t == WORD_LITERAL))
-
-    widx = jnp.cumsum(start, axis=-1, dtype=_I) - 1  # word slot of covering run
+    slot = jnp.cumsum(start, axis=-1, dtype=_I) - 1
     counts = jnp.sum(start, axis=-1, dtype=_I)
-
     # run ends: next chunk starts a new run, or is invalid / past block end
-    nv = shift_left(v, 1, fill=False)
-    end = v & (shift_left(start, 1, fill=True) | ~nv)
+    end = v & (_shift(start, -1, True) | ~_shift(v, -1, False))
 
-    # covering run start position via cummax (replaces the per-lane
-    # backward walk at kernels.cu:155-162 and the warp-merge machinery)
+    # covering run start via cummax (replaces the per-lane backward walk
+    # at kernels.cu:155-162 and the warp-merge machinery)
     run_start = jax.lax.cummax(jnp.where(start, col, _I(-1)), axis=1)
     run_len = (col - run_start + 1).astype(_U)
-
     value = jnp.where(
         t == WORD_LITERAL,
         chunks,
@@ -98,46 +102,37 @@ def encode_blocks(
             t == WORD_ONES, _U(BIT3130) | run_len, _U(BIT31) | run_len
         ),
     )
-
-    # per-block compaction: word at chunk-position i goes to slot widx[i]
-    d = col[None, :] - widx
-    (staging,), ok = compact([value], end, d, ceil_log2(C))
-    staging = jnp.where(ok, staging, _U(0))
-    return staging, counts
-
-
-def stitch(
-    staging: jnp.ndarray, counts: jnp.ndarray
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Concatenate per-block word streams into one dense stream.
-
-    Replaces thrust::exclusive_scan + moveData (compress.cu:133-166,
-    kernels.cu:273-280) with a block-count scan and a global monotone
-    log-shift compaction. Returns (words (nb*1024,), total int32).
-    """
-    nb, C = staging.shape
-    offsets = jnp.cumsum(counts, dtype=_I) - counts  # exclusive scan
-    total = offsets[-1] + counts[-1]
-    col = jnp.arange(C, dtype=_I)
-    ok = (col[None, :] < counts[:, None]).reshape(-1)
-    d = jnp.broadcast_to(
-        (jnp.arange(nb, dtype=_I) * C - offsets)[:, None], (nb, C)
-    ).reshape(-1)
-    (words,), okf = compact([staging.reshape(-1)], ok, d, ceil_log2(nb * C))
-    return jnp.where(okf, words, _U(0)), total
+    return value, end, slot, counts
 
 
 def encode_padded(
-    ints: jnp.ndarray, n_valid_chunks
+    ints: jnp.ndarray, n_valid_chunks, chunk_base=0
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Compress a block-aligned (nb*992,) uint32 bitmap whose first
     `n_valid_chunks` (traced scalar allowed) chunks are live; trailing
-    padding emits no words. Returns (words (nb*1024,), total_count)."""
+    padding emits no words. Returns (words (nb*1024,), total_count).
+
+    The block-count exclusive scan and one scatter replace
+    thrust::exclusive_scan + moveData (compress.cu:133-166): the word of
+    the run ending at chunk (b, i) lands at offsets[b] + slot[b, i]."""
     assert ints.shape[0] % BLOCK_INTS == 0, ints.shape
     nb = ints.shape[0] // BLOCK_INTS
+    cap = nb * BLOCK_CHUNKS
     chunks = bits.repartition_chunks(ints.astype(_U)).reshape(nb, BLOCK_CHUNKS)
-    staging, counts = encode_blocks(chunks, n_valid_chunks)
-    return stitch(staging, counts)
+    value, end, slot, counts = block_words(chunks, n_valid_chunks, chunk_base)
+    offsets = jnp.cumsum(counts, dtype=_I) - counts  # exclusive scan
+    total = offsets[-1] + counts[-1]
+    # chunks that end no run aim past the end, each at its own index,
+    # so that every index is unique and the scatter drops them
+    dest = jnp.where(
+        end,
+        offsets[:, None] + slot,
+        cap + jnp.arange(cap, dtype=_I).reshape(nb, BLOCK_CHUNKS),
+    )
+    words = jnp.zeros((cap,), _U).at[dest.reshape(-1)].set(
+        value.reshape(-1), mode="drop", unique_indices=True
+    )
+    return words, total
 
 
 def encode_batch(
@@ -170,3 +165,4 @@ def encode(ints: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     ints = ints.astype(_U)
     padded = jnp.zeros(nb * BLOCK_INTS, dtype=_U).at[:n].set(ints)
     return encode_padded(padded, nv)
+

@@ -2,13 +2,10 @@
 
 WAH's purpose is bitmap indexes, whose queries are bitwise AND/OR/XOR/
 ANDNOT across compressed columns (Andrzejewski & Wrembel target exactly
-this workload; the reference repo ships only the codec). On a TPU the
-right architecture is NOT the CPU-classic run-merging walk (inherently
-sequential, word-at-a-time): the codec itself runs at memory speed, so
-binary ops decode both operands into block chunk space, apply the op on
-the vector units, and re-encode — one fused jitted pipeline, all
-device-resident, throughput bounded by the codec kernels (10-15 GB/s of
-logical bitmap per chip).
+this workload; the reference repo ships only the codec). Binary ops
+decode both operands into block chunk space, apply the op elementwise,
+and re-encode — one jitted pipeline, all device-resident, whose cost
+follows the uncompressed size.
 
 NOT is complement: every literal flips, zero-fills and one-fills swap —
 a pure stream rewrite with no decode at all (one vectorized pass over
@@ -17,12 +14,11 @@ padding chunks stay zero.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from ..constants import BIT31, BIT3130, BLOCK_CHUNKS, BLOCK_INTS, ONES31
 from . import decode as _dec
-from . import encode as _enc
+from .encode import encode_padded
 
 __all__ = [
     "logical_op",
@@ -43,16 +39,6 @@ OPS = {
 }
 
 
-def _decode_ints(words, m, chunk_capacity):
-    if jax.default_backend() != "cpu":
-        from .pallas.decode_kernel import decode as dec
-
-        ints, _ = dec(words, m, chunk_capacity)
-        return ints
-    ints, _ = _dec.decode(words, m, chunk_capacity)
-    return ints
-
-
 def logical_op(
     words_a: jnp.ndarray,
     m_a,
@@ -63,7 +49,7 @@ def logical_op(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """streams A, B (equal logical length n_ints) -> compressed A op B.
 
-    Fully jittable: decode A and B to bitmaps, combine on the VPU,
+    Fully jittable: decode A and B to bitmaps, combine elementwise,
     re-encode — no host round trips. Returns (words, total) with the
     same dense-prefix contract as ops.encode.encode.
     """
@@ -73,8 +59,8 @@ def logical_op(
     nv = chunk_count(n_ints)
     nb = -(-nv // BLOCK_CHUNKS)
     cap = nb * BLOCK_CHUNKS
-    a = _decode_ints(words_a.astype(_U), m_a, cap)
-    b = _decode_ints(words_b.astype(_U), m_b, cap)
+    a, _ = _dec.decode(words_a.astype(_U), m_a, cap)
+    b, _ = _dec.decode(words_b.astype(_U), m_b, cap)
     combined = fn(a, b)
     # mask bits beyond the true length (ANDNOT/ops with ~ could set
     # padding bits, which must encode as zero fills)
@@ -82,11 +68,7 @@ def logical_op(
     i = jnp.arange(pad_ints, dtype=_I)
     last_bits = n_ints * 32  # bitmaps are whole uint32 words
     combined = jnp.where(i * 32 < last_bits, combined, _U(0))
-    if jax.default_backend() != "cpu":
-        from .pallas.encode_kernel import encode_padded as enc
-    else:
-        enc = _enc.encode_padded
-    return enc(combined[:pad_ints], nv)
+    return encode_padded(combined[:pad_ints], nv)
 
 
 def _identity_words(op: str, nv: int, M: int) -> tuple[jnp.ndarray, int]:
@@ -113,9 +95,7 @@ def logical_reduce(
     op: str,
     n_ints: int,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """2-D (C, M) wrapper over logical_reduce_flat (host callers with
-    numpy arrays should flatten and call the flat form directly — a
-    device-side (C, M) -> flat relayout is an HBM copy on TPU)."""
+    """2-D (C, M) wrapper over logical_reduce_flat."""
     C, M = words2d.shape
     return logical_reduce_flat(
         words2d.reshape(C * M), C, ms, op=op, n_ints=n_ints
@@ -135,13 +115,10 @@ def logical_reduce_flat(
     elementwise reduce + ONE encode instead of k-1 pairwise
     decode+decode+encode pipelines (~3x less codec work for large k).
 
-    The reduce is a TREE fold over halves of the decoded buffer —
+    The reduce is a TREE fold over halves of the decoded columns —
     O(log C) graph depth and at most 2x one decode output of extra
     element traffic — padded to a power-of-two fan-in with identity
-    streams. The flat Pallas batch output is folded by 1-D halving
-    slices, never reshaped to (C, len) on device (a layout-changing
-    reshape of a large kernel output costs a full HBM copy, ~55 ms for
-    2.1 GB on v5e — measured, see CLAUDE.md)."""
+    streams."""
     assert op in ("or", "and", "xor"), op  # andnot is not associative
     fn = OPS[op]
     from ..golden import chunk_count
@@ -160,36 +137,18 @@ def logical_reduce_flat(
         ms = jnp.concatenate(
             [jnp.asarray(ms, _I), jnp.full((Cp - C,), mi, _I)]
         )
-    if jax.default_backend() != "cpu":
-        from .pallas.decode_kernel import TILE_BLOCKS as _DT
-        from .pallas.decode_kernel import decode_rows_batch
-
-        nbp = max(_DT, 1 << (nb - 1).bit_length())
-        flat = decode_rows_batch(words_flat, Cp, ms, nbp * BLOCK_CHUNKS)
-        collen = nbp * BLOCK_INTS
-        c = Cp
-        while c > 1:
-            h = c // 2
-            flat = fn(flat[: h * collen], flat[h * collen :])
-            c = h
-        acc = flat[:pad_ints]
-    else:
-        ints2d, _ = _dec.decode_batch(
-            words_flat.reshape(Cp, M), ms, chunk_capacity=nb * BLOCK_CHUNKS
-        )
-        c = Cp
-        while c > 1:
-            h = c // 2
-            ints2d = fn(ints2d[:h], ints2d[h:])
-            c = h
-        acc = ints2d[0][:pad_ints]
+    ints2d, _ = _dec.decode_batch(
+        words_flat.reshape(Cp, M), ms, chunk_capacity=nb * BLOCK_CHUNKS
+    )
+    c = Cp
+    while c > 1:
+        h = c // 2
+        ints2d = fn(ints2d[:h], ints2d[h:])
+        c = h
+    acc = ints2d[0][:pad_ints]
     i = jnp.arange(pad_ints, dtype=_I)
     acc = jnp.where(i * 32 < n_ints * 32, acc, _U(0))
-    if jax.default_backend() != "cpu":
-        from .pallas.encode_kernel import encode_padded as enc
-
-        return enc(acc, nv, stitch="v3")
-    return _enc.encode_padded(acc, nv)
+    return encode_padded(acc, nv)
 
 
 def complement_stream(words: jnp.ndarray, m) -> jnp.ndarray:

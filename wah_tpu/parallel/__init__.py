@@ -1,4 +1,4 @@
-"""Multi-chip parallelism: mesh construction + sharded encode/decode."""
+"""Multi-device parallelism: mesh construction + sharded encode/decode."""
 from .dist import (
     AXIS,
     ShardedCodec,

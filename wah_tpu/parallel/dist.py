@@ -1,20 +1,21 @@
-"""Multi-chip sharded WAH codec: mesh + shard_map + XLA collectives.
+"""Multi-device sharded WAH codec: mesh + shard_map + XLA collectives.
 
 The reference is single-process / single-GPU — it has no distributed
 backend at all (SURVEY.md §2.2; the only "communication" is PCIe
-cudaMemcpy, compress.cu:108,184). This module is the TPU-native scaling
-story that replaces it: the 1024-chunk block axis (the reference's CUDA
-grid axis, compress.cu:62-67) becomes a sharded mesh axis.
+cudaMemcpy, compress.cu:108,184). Here the 1024-chunk block axis (the
+reference's CUDA grid axis, compress.cu:62-67) becomes a sharded mesh
+axis over the devices (a 1-D mesh: every card of a host reaches every
+other over NVLink at the same rate, so the mesh follows the algorithm).
 
-Design (bit-identical to single chip by construction):
+Design (bit-identical to one device by construction):
 
   encode: bitmap blocks are sharded over the mesh; each shard runs the
-    local block encoder (ops.encode) and stitches its own dense word
+    encoder (ops.encode.encode_padded) and stitches its own dense word
     stream. Because fill runs never cross a 1024-chunk block boundary
     (reference: tests.cpp:227-239) and shard boundaries are block-aligned,
-    concatenating the shards' streams in mesh order *is* the single-chip
-    stream — the only cross-chip data needed is the (D,) vector of
-    per-shard word totals (an all_gather over ICI of a few bytes).
+    concatenating the shards' streams in mesh order *is* the single-device
+    stream — the only cross-device data needed is the (D,) vector of
+    per-shard word totals (an all_gather of a few bytes).
 
   decode: the compressed stream is small (by the compression ratio) —
     and stitch_global's word_cap bound keeps the all_gather that
@@ -41,7 +42,7 @@ from ..constants import BLOCK_CHUNKS, BLOCK_INTS
 from ..golden import chunk_count
 from ..ops import bits
 from ..ops.decode import decode_span
-from ..ops.encode import encode_blocks, stitch
+from ..ops.encode import encode_padded
 
 __all__ = [
     "make_mesh",
@@ -72,39 +73,15 @@ def make_mesh(devices=None) -> Mesh:
 # encode
 # --------------------------------------------------------------------------
 
-def _encode_local(
-    ints_l: jnp.ndarray,
-    nv: jnp.ndarray,
-    stitch_variant: str = "v3",
-    use_pallas: bool | None = None,
-    adaptive: bool = False,
-):
+def _encode_local(ints_l: jnp.ndarray, nv: jnp.ndarray):
     """Per-shard encode: (nb_l*992,) ints -> (nb_l*1024,) words, (1,) total.
 
-    On TPU backends each shard runs the fused Pallas kernels; elsewhere
-    (CPU meshes, tests) the pure-XLA pipeline. Both are bit-identical.
-    stitch_variant: static choice (see encode_kernel.encode_padded) —
-    default v3, the constant-cost stitch; ShardedCodec passes the
-    host-sampled hint. use_pallas overrides the backend-based selection
-    (tests force the interpreted Pallas kernels under a CPU shard_map to
-    exercise their shard-padding semantics on real mesh geometries).
-    """
+    Chunk validity is judged against the global position, so padding on
+    the last shards emits nothing."""
     nb_l = ints_l.shape[0] // BLOCK_INTS
     shard = jax.lax.axis_index(AXIS).astype(_I)
     chunk_base = shard * _I(nb_l * BLOCK_CHUNKS)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu"
-    if use_pallas:
-        from ..ops.pallas import encode_kernel
-
-        words_l, total_l = encode_kernel.encode_padded(
-            ints_l.astype(jnp.uint32), nv, chunk_base,
-            stitch=stitch_variant, adaptive=adaptive,
-        )
-        return words_l, total_l[None]
-    chunks = bits.repartition_chunks(ints_l).reshape(nb_l, BLOCK_CHUNKS)
-    staging, counts = encode_blocks(chunks, nv, chunk_base)
-    words_l, total_l = stitch(staging, counts)
+    words_l, total_l = encode_padded(ints_l.astype(_U), nv, chunk_base)
     return words_l, total_l[None]
 
 
@@ -112,9 +89,6 @@ def encode_sharded(
     mesh: Mesh,
     ints: jnp.ndarray,
     n_valid_chunks,
-    stitch: str = "v3",
-    use_pallas: bool | None = None,
-    adaptive: bool = False,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Distributed encode over `mesh`.
 
@@ -123,31 +97,23 @@ def encode_sharded(
     shard's words are the dense prefix of its nb_l*1024 slice — and
     totals (D,), one word count per shard). The pair is the distributed
     representation of the stream; `gather_stream` assembles the exact
-    single-chip stream.
+    single-device stream.
     """
     assert ints.shape[0] % (BLOCK_INTS * mesh.size) == 0, ints.shape
-    f = _encode_shardmap(mesh, stitch, use_pallas, adaptive)
+    f = _encode_shardmap(mesh)
     return f(ints.astype(_U), jnp.asarray(n_valid_chunks, dtype=_I))
 
 
 @lru_cache(maxsize=64)
-def _encode_shardmap(mesh: Mesh, stitch: str, use_pallas: bool | None,
-                     adaptive: bool = False):
+def _encode_shardmap(mesh: Mesh):
     """Cached jitted shard_map: rebuilding the wrapped callable per call
-    defeats the jit cache (a fresh partial() is a fresh cache key), so a
-    segment loop like benchmarks/config4_dryrun recompiled every
-    iteration (~26 s/segment on the CPU mesh)."""
-    # check_vma=False: the local body may invoke Pallas kernels, whose
-    # out_shapes don't carry the varying-axis metadata the checker needs
+    defeats the jit cache, so a segment loop like
+    benchmarks/config4_dryrun recompiled every iteration."""
     return jax.jit(jax.shard_map(
-        partial(
-            _encode_local, stitch_variant=stitch, use_pallas=use_pallas,
-            adaptive=adaptive,
-        ),
+        _encode_local,
         mesh=mesh,
         in_specs=(P(AXIS), P()),
         out_specs=(P(AXIS), P(AXIS)),
-        check_vma=False,
     ))
 
 
@@ -155,10 +121,10 @@ def _stitch_global_local(
     words_l: jnp.ndarray, totals_l: jnp.ndarray, word_cap: int | None = None
 ):
     """Per-shard body: all_gather the shard streams and compact them into
-    one replicated dense stream (the cross-chip equivalent of the
+    one replicated dense stream (the cross-device equivalent of the
     reference's thrust::exclusive_scan + moveData stitch,
     compress.cu:133-166). Communication: one all_gather of the (D,)
-    totals + one of the word payload over ICI. word_cap (static) bounds
+    totals + one of the word payload. word_cap (static) bounds
     the payload to the first word_cap words of each shard — the
     interconnect analogue of the reference's exact-size output alloc
     (compress.cu:159-166): never move dead capacity bytes. Totals are
@@ -199,7 +165,7 @@ def stitch_global(
     overflow).
 
     Jit-safe device-side equivalent of gather_stream: after this, every
-    chip holds the full compressed stream, ready for sharded decode or
+    device holds the full compressed stream, ready for sharded decode or
     host offload.
 
     word_cap: static per-shard payload bound in words (None = full
@@ -227,7 +193,7 @@ def stitch_word_cap(totals) -> int:
 
 def estimate_word_cap(data: np.ndarray, nb_l: int) -> int:
     """Sample-based static payload bound from the RAW bitmap (host, no
-    device sync) — same strided-sample pattern as WahCodec._stitch_hint.
+    device sync), from a strided sample of the bitmap.
 
     Per 1024-chunk block, words = literals + fill runs and consecutive
     fill runs are separated by >=1 literal, so words <= 2*literals + 1.
@@ -274,34 +240,13 @@ def gather_stream(words: jax.Array, totals: jax.Array) -> np.ndarray:
 # decode
 # --------------------------------------------------------------------------
 
-def _decode_local(
-    words: jnp.ndarray,
-    m: jnp.ndarray,
-    chunks_l: int,
-    use_pallas: bool | None = None,
-    adaptive: bool = False,
-):
+def _decode_local(words: jnp.ndarray, m: jnp.ndarray, chunks_l: int):
     """Per-shard decode of chunk span [shard*chunks_l, (shard+1)*chunks_l).
 
     words is replicated. Returns (ints_l (chunks_l//32*31,), n_chunks (1,)).
-    On TPU backends with block-aligned shards each shard runs the fused
-    Pallas decoder; elsewhere the pure-XLA span decoder. use_pallas:
-    see _encode_local.
     """
     shard = jax.lax.axis_index(AXIS).astype(_I)
     base = shard * _I(chunks_l)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu"
-    if use_pallas and chunks_l % BLOCK_CHUNKS == 0:
-        from ..ops.pallas import decode_kernel
-
-        from ..ops.decode import word_counts
-
-        ints_l, _ = decode_kernel.decode(
-            words, m, chunks_l, base, adaptive=adaptive
-        )
-        n_chunks = jnp.sum(word_counts(words, m), dtype=_I)
-        return ints_l, n_chunks[None]
     # +32 capacity: one extra warp of chunks so chunk[chunks_l] (the
     # cross-shard merge carry, reference: kernels.cu:377) decodes locally
     chunks_ext, n_chunks = decode_span(words, m, base, chunks_l + 32)
@@ -314,8 +259,6 @@ def decode_sharded(
     words: jnp.ndarray,
     m,
     chunk_capacity: int,
-    use_pallas: bool | None = None,
-    adaptive: bool = False,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Distributed decode: replicated stream -> block-sharded bitmap.
 
@@ -327,17 +270,15 @@ def decode_sharded(
     D = mesh.size
     assert chunk_capacity % (32 * D) == 0, (chunk_capacity, D)
     chunks_l = chunk_capacity // D
-    f = _decode_shardmap(mesh, chunks_l, use_pallas, adaptive)
+    f = _decode_shardmap(mesh, chunks_l)
     return f(words.astype(_U), jnp.asarray(m, dtype=_I))
 
 
 @lru_cache(maxsize=64)
-def _decode_shardmap(mesh: Mesh, chunks_l: int, use_pallas: bool | None,
-                     adaptive: bool = False):
+def _decode_shardmap(mesh: Mesh, chunks_l: int):
     """Cached jitted shard_map (see _encode_shardmap)."""
     return jax.jit(jax.shard_map(
-        partial(_decode_local, chunks_l=chunks_l, use_pallas=use_pallas,
-                adaptive=adaptive),
+        partial(_decode_local, chunks_l=chunks_l),
         mesh=mesh,
         in_specs=(P(), P()),
         out_specs=(P(AXIS), P(AXIS)),
@@ -355,7 +296,7 @@ def gather_bitmap(ints: jax.Array, n_ints: int) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 class ShardedCodec:
-    """Host API over the sharded codec (mirrors api.WahCodec, N chips)."""
+    """Host API over the sharded codec (mirrors api.WahCodec, N devices)."""
 
     def __init__(self, mesh: Mesh | None = None):
         self.mesh = mesh if mesh is not None else make_mesh()
@@ -377,13 +318,7 @@ class ShardedCodec:
         padded[:n] = data
         sharding = NamedSharding(self.mesh, P(AXIS))
         dev = jax.device_put(padded, sharding)
-        from ..api import WahCodec
-
-        words, totals = encode_sharded(
-            self.mesh, dev, np.int32(nv),
-            stitch=WahCodec._stitch_hint(data),
-            adaptive=WahCodec._adaptive_hint(data),
-        )
+        words, totals = encode_sharded(self.mesh, dev, np.int32(nv))
         return gather_stream(words, totals)
 
     def decompress(
@@ -395,13 +330,14 @@ class ShardedCodec:
         m = words.shape[0]
         if m == 0:
             return np.zeros(0, dtype=np.uint32)
-        from ..api import _next_pow2  # shared bucketing policy
+        from ..api import _check_chunks, _next_pow2  # shared policy
         from ..constants import BIT31, LEN_MASK
 
         is_fill = (words & np.uint32(BIT31)) != 0
         n_chunks = int(
             np.where(is_fill, words & np.uint32(LEN_MASK), 1).sum()
         )
+        _check_chunks(n_chunks)
         D = self.mesh.size
         nb = max(D, -(-n_chunks // BLOCK_CHUNKS))
         nb = -(-_next_pow2(nb) // D) * D
@@ -409,16 +345,12 @@ class ShardedCodec:
         M = min(_next_pow2(max(m, 1024)), cap)
         padded = np.zeros(M, dtype=np.uint32)
         padded[:m] = words
-        from ..api import WahCodec
-
-        dad = WahCodec._decode_adaptive_hint(words)
-        fn = self._dec_cache.get((M, cap, dad))
+        fn = self._dec_cache.get((M, cap))
         if fn is None:
             fn = jax.jit(
-                partial(decode_sharded, self.mesh, chunk_capacity=cap,
-                        adaptive=dad)
+                partial(decode_sharded, self.mesh, chunk_capacity=cap)
             )
-            self._dec_cache[(M, cap, dad)] = fn
+            self._dec_cache[(M, cap)] = fn
         ints, n_chunks_dev = fn(jax.device_put(padded), m=np.int32(m))
         n_ints = (31 * int(np.asarray(n_chunks_dev)[0]) + 31) // 32
         out = gather_bitmap(ints, n_ints)

@@ -2,20 +2,20 @@
 host-local input/output helpers for the sharded codec.
 
 The reference is strictly single-process (SURVEY.md §2.2); this module
-is the TPU-native scale-out path: one process per host, chips linked by
-ICI within a slice and DCN across slices, with the codec's block axis
-sharded over every chip in the job. Stream assembly is exactly the
-single-chip stream because shard boundaries are block-aligned
+is the scale-out path: one process per host, the GPUs of a host joined
+by NVLink and hosts by the network, with the codec's block axis sharded
+over every device in the job. Stream assembly is exactly the
+single-device stream because shard boundaries are block-aligned
 (tests.cpp:227-239 pins no-merge-across-blocks).
 
 Usage (one process per host):
 
     from wah_tpu.parallel import multihost
     multihost.initialize()                  # jax.distributed bring-up
-    mesh = multihost.global_mesh()          # 1-D mesh over ALL chips
+    mesh = multihost.global_mesh()          # 1-D mesh over ALL devices
     codec = ShardedCodec(mesh)              # works as on one host
 
-Testing without a pod: the sharded codec itself is mesh-size agnostic
+Testing without a cluster: the sharded codec itself is mesh-size agnostic
 and is exercised on an 8-virtual-device CPU mesh in tests/test_dist.py;
 this module only adds the process-group bring-up glue, which follows
 the standard jax.distributed contract.
@@ -38,9 +38,9 @@ def initialize(
 ) -> None:
     """Bring up the JAX process group (no-op for single-process jobs).
 
-    With no arguments, relies on the cluster environment (TPU pod
-    metadata / JAX_COORDINATOR_ADDRESS etc.), the standard
-    jax.distributed auto-detection path.
+    With no arguments, relies on jax.distributed's auto-detection of the
+    cluster environment; where nothing describes a cluster, pass
+    coordinator_address ("host:port"), num_processes and process_id.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -63,7 +63,7 @@ def initialize(
 
 
 def global_mesh() -> Mesh:
-    """1-D mesh over every chip in the job, in (process, local-device)
+    """1-D mesh over every device in the job, in (process, local-device)
     order so stream order == process order (deterministic assembly)."""
     return Mesh(np.asarray(jax.devices()), (AXIS,))
 

@@ -1,10 +1,10 @@
-"""Phase timing utilities — TPU equivalent of the reference's cudaEvent
+"""Phase timing utilities — the counterpart of the reference's cudaEvent
 timer macros (reference: timeMeasuring.h:11-28).
 
 The reference reports three phases per direction: transfer-to-device,
-kernel, transfer-from-device (compress.h:16-18). On TPU the same phases
-are measured with wall clocks around `jax.device_put` /
-`block_until_ready` / host materialization.
+kernel, transfer-from-device (compress.h:16-18). Here the same phases
+are measured with the host clock around `jax.device_put` /
+dispatch + `block_until_ready` / host materialization.
 """
 from __future__ import annotations
 
